@@ -3,7 +3,8 @@
 Reference flags (reconstructed from `src/cpp/main.cpp`, SURVEY.md §2 C6;
 mount empty): positional M5 input (or stdin), `-c` min coverage (8),
 `-m` min length (500), `-j` threads (4), `-t` trim (0). Names and
-defaults preserved for behavioural comparison; TPU knobs are additive.
+defaults preserved for behavioural comparison; accelerator knobs are
+additive.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu-dagcon",
         description=(
-            "TPU-native DAG consensus with pbdagcon's capabilities: "
+            "Accelerator DAG consensus with pbdagcon's capabilities: "
             "M5/'pre' alignments in, consensus FASTA out."
         ),
     )
@@ -64,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--backend",
         choices=(
-            "auto", "xla", "blocked", "pallas", "host", "devbuild",
+            "auto", "xla", "blocked", "host", "devbuild",
             "hybrid",
         ),
         default="auto",
@@ -76,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
         choices=("host", "device"),
         default="host",
         help="where -a re-alignment runs: threaded C++ banded DP (host) "
-        "or the batched TPU kernel (device); both are exact",
+        "or the batched device kernel (device); both are exact",
     )
     p.add_argument(
         "--align-scorer",
@@ -98,8 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--transfer-cap-mb", type=int, default=0,
-        help="cap per host->device transfer (MB); 0 = probe from the "
-        "platform (tunneled backends get a conservative cap)",
+        help="cap per host->device transfer (MB); 0 = 1 GiB",
     )
     p.add_argument(
         "--chunk-mb", type=int, default=16,
@@ -108,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--edge-upload", action="store_true",
         help="upload graph batches as edge-CSR streams (~10x less "
-        "transfer; slow first compile on tunneled backends)",
+        "transfer; the dense band is rebuilt on device)",
     )
     p.add_argument(
         "--width", type=int, default=0,

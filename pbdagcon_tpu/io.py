@@ -1,6 +1,6 @@
 """Streaming alignment IO: target-grouped reader and FASTA writer.
 
-TPU-native replacement for the reference's reader/writer threads
+Accelerator-side replacement for the reference's reader/writer threads
 (`src/cpp/main.cpp` Reader/Writer functors + `BoundedBuffer.hpp`,
 SURVEY.md §2 C5–C6, §3.1 — reconstructed; mount empty). Instead of a
 pthread pipeline, the reader is a generator that yields per-target groups

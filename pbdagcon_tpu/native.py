@@ -29,18 +29,24 @@ _lib: ctypes.CDLL | None = None
 _load_failed = False
 
 
-def ensure_built(force: bool = False) -> bool:
-    """Build libdagcon.so if missing; True if the library exists after."""
-    if os.path.exists(_LIB_PATH) and not force:
-        return True
+def ensure_built() -> bool:
+    """Run `make` on the native sources (a no-op when libdagcon.so is
+    newer than dagcon.cpp / dazzdb.cpp, a rebuild when it is stale or
+    missing); True if the library exists after. The library is compiled
+    with -march=native, so it is built on the machine that loads it."""
+    import fcntl
+
     try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR, "-s"],
-            check=True,
-            capture_output=True,
-            timeout=300,
-        )
-    except Exception:
+        # One build at a time across processes (test workers, ranks).
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR, "-s"],
+                check=True,
+                capture_output=True,
+                timeout=300,
+            )
+    except (OSError, subprocess.SubprocessError):
         return False
     return os.path.exists(_LIB_PATH)
 
@@ -49,7 +55,7 @@ def _load() -> ctypes.CDLL | None:
     global _lib, _load_failed
     if _lib is not None or _load_failed:
         return _lib
-    if not os.path.exists(_LIB_PATH) and not ensure_built():
+    if not ensure_built():
         _load_failed = True
         return None
     try:
@@ -637,8 +643,8 @@ class NativeEngine:
         Bp = max(b_pad or B, B)
         ia = np.asarray(idxs, dtype=np.int32)
         # One contiguous arena: the caller can upload the whole batch in
-        # a single transfer (per-transfer fixed costs dominate tunneled
-        # links). Each array is a view into it.
+        # a single transfer (one fixed per-transfer cost). Each array is
+        # a view into it.
         off = arena_layout(Bp, V, W, K)
         arena = np.zeros(off["_total"], dtype=np.uint8)
 

@@ -1,11 +1,11 @@
 """Tensor path: graph linearization + batched device consensus DP.
 
-This package is the TPU-first re-architecture of the reference's
+This package is the accelerator re-architecture of the reference's
 `AlnGraphBoost::consensus()` topological DP (`src/cpp/AlnGraphBoost.cpp`,
 SURVEY.md §3.4 — reconstructed; mount empty): the merged graph is
 linearized host-side into banded dense arrays (SPEC.md §3.1) and the
 max-weight-path DP runs on device as a batched reverse max-plus scan
-(`dp.py` XLA scan, `dp_pallas.py` Pallas kernel), with bit-exact
+(`dp.py` XLA scan, `dp_blocked.py` max-plus blocked solve), with bit-exact
 creation-order backtrack + emission back on the host (`linearize.py`).
 """
 

@@ -55,8 +55,7 @@ def backtrack_emit(build, scores, min_weight, P: int):
     """Scan-free walk: per-node best successors are computed vectorized
     (band totals from W static shifted slices of the score vector; no
     sequential dependence), then the path is extracted with log2(P)
-    pointer-doubling steps — ~100x faster than a per-step scan on this
-    hardware (gather-latency bound).
+    pointer-doubling steps instead of a P-long per-step scan.
     """
     win = build["win"]
     B, V, W = win.shape
@@ -87,11 +86,11 @@ def backtrack_emit(build, scores, min_weight, P: int):
     # single patch-extraction op per array (keeps the HLO small — an
     # unrolled slice loop explodes compile time at W = 96).
     def shifted(x):
-        # precision=HIGHEST is parity-critical: TPU convs default to
-        # reduced precision, which would round the f32 scores flowing
-        # through the identity patch filter (bf16 has 8 mantissa bits;
-        # scores are exact multiples of 0.5 into the thousands) and
-        # corrupt tie evaluation.
+        # precision=HIGHEST is parity-critical: an f32 conv may
+        # otherwise run in reduced precision (TF32 on the GPU keeps 10
+        # mantissa bits), which would round the f32 scores flowing
+        # through the identity patch filter (scores are exact multiples
+        # of 0.5 into the thousands) and corrupt tie evaluation.
         p = jax.lax.conv_general_dilated_patches(
             x[:, 1:, None].astype(jnp.float32),
             filter_shape=(W,),
@@ -156,17 +155,9 @@ def backtrack_emit(build, scores, min_weight, P: int):
     j = jnp.argmax(sel, axis=1)  # [B, V] winning candidate index
     is_band = j < W
     is_exit = j == W
-    if jax.default_backend() == "tpu":
-        from pbdagcon_tpu.ops.mxu import mxu_gather as _mg
-
-        lw_sel = _mg(
-            jnp.clip(l_w, 0, (1 << 15) - 1),
-            jnp.clip(j - W - 1, 0, K - 1), max_val=1 << 15,
-        )
-    else:
-        lw_sel = jnp.take_along_axis(
-            l_w, jnp.clip(j - W - 1, 0, K - 1), axis=-1
-        )
+    lw_sel = jnp.take_along_axis(
+        l_w, jnp.clip(j - W - 1, 0, K - 1), axis=-1
+    )
     best_next = jnp.where(
         is_band,
         vidx + 1 + j,
@@ -207,27 +198,17 @@ def backtrack_emit(build, scores, min_weight, P: int):
         [node_unc, jnp.zeros((B, 1), bool)], axis=-1
     )
 
-    def ext_gather(tbl, idx, max_val=None):
-        """Exit-absorbing gather. Wide index sets ride the MXU one-hot
-        gather (elementwise gathers run at ~10 ns/index on this part —
-        the jump tables and block fills were ~50 ms of the emit
-        program); tiny index sets (block-start chain) keep the
-        hardware gather."""
+    def ext_gather(tbl, idx):
+        """Exit-absorbing gather: indices at or past n read the exit."""
         ic = jnp.clip(jnp.where(idx >= n[:, None], V, idx), 0, V)
-        if idx.shape[-1] > 8 and jax.default_backend() == "tpu":
-            from pbdagcon_tpu.ops.mxu import mxu_gather
-
-            return mxu_gather(
-                tbl, ic, max_val=max_val if max_val else V + 2
-            )
         return jnp.take_along_axis(tbl, ic, axis=-1)
 
     # Two-level walk: doubling tables only up to 2^(LVL-1) steps (each
-    # level is a V-wide elementwise gather, ~the most expensive op class
-    # on this part), then a sequential chain of [B]-sized jumps for the
-    # P/2^LVL block starts (tiny-op latency only), then an in-block
-    # fill with the LVL tables. Halves the V-wide gather count vs full
-    # pointer doubling (measured win; exact same path semantics).
+    # level is a V-wide elementwise gather), then a sequential chain of
+    # [B]-sized jumps for the P/2^LVL block starts (tiny-op latency
+    # only), then an in-block fill with the LVL tables. Halves the
+    # V-wide gather count vs full pointer doubling (exact same path
+    # semantics).
     nbits = max(1, (P - 1).bit_length())
     LVL = min(nbits, 6)
     jumps = [nxt_ext]
@@ -266,38 +247,18 @@ def backtrack_emit(build, scores, min_weight, P: int):
     overflow = (last < n) & (last_next < n)
 
     # ---- emission gathers ---------------------------------------------
-    # base(7b) | weight(12b) | bbpos(15b)... exceeds one i32 only if
-    # weight is wide; keep base+bbpos packed (22 bits) and weight
-    # separate — two MXU gathers instead of three elementwise ones.
     pclip = jnp.clip(path, 0, V - 1)
-    if jax.default_backend() == "tpu":
-        from pbdagcon_tpu.ops.mxu import mxu_gather
-
-        bw = (
-            (jnp.clip(build["bbpos"], 0, 0x7FFF) << 7)
-            | (build["base"].astype(jnp.int32) & 0x7F)
-        )
-        g1 = mxu_gather(bw, pclip, max_val=1 << 22)
-        gw = mxu_gather(
-            jnp.clip(weight, 0, 0x7FFF), pclip, max_val=1 << 15
-        )
-        bases = jnp.where(valid, g1 & 0x7F, 0).astype(jnp.uint8)
-        kept = valid & (gw >= min_weight)
-        bpos = jnp.where(valid, g1 >> 7, 0)
-    else:
-        bases = jnp.where(
-            valid,
-            jnp.take_along_axis(
-                build["base"].astype(jnp.int32), pclip, -1
-            ),
-            0,
-        ).astype(jnp.uint8)
-        kept = valid & (
-            jnp.take_along_axis(weight, pclip, axis=-1) >= min_weight
-        )
-        bpos = jnp.where(
-            valid, jnp.take_along_axis(build["bbpos"], pclip, axis=-1), 0
-        )
+    bases = jnp.where(
+        valid,
+        jnp.take_along_axis(build["base"].astype(jnp.int32), pclip, -1),
+        0,
+    ).astype(jnp.uint8)
+    kept = valid & (
+        jnp.take_along_axis(weight, pclip, axis=-1) >= min_weight
+    )
+    bpos = jnp.where(
+        valid, jnp.take_along_axis(build["bbpos"], pclip, axis=-1), 0
+    )
     return {
         "bases": bases,
         "kept": kept,

@@ -2,7 +2,7 @@
 computed in int32 half-units.
 
 The direct reverse scan (`dp.dp_scores`) runs V sequential steps of tiny
-work — latency-bound on TPU (each step is ~[B, W] elements). This module
+work — latency-bound (each step is ~[B, W] elements). This module
 reformulates the same recurrence as **max-plus linear algebra** so the
 chain shortens to ~L + V/L + L steps of large dense work:
 

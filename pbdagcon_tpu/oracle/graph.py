@@ -5,7 +5,7 @@ Implements SPEC.md §2: the backbone-seeded POA DAG of the reference's
 SURVEY.md §2 C4, §3.3–3.4; reference mount empty — SPEC.md is normative).
 
 This is deliberately a readable, dependency-free Python implementation.
-It is NOT the production path (that is `native/` + the TPU kernels); it is
+It is NOT the production path (that is `native/` + the device kernels); it is
 the ground truth that the C++ engine and the tensor path are differentially
 tested against, bit for bit.
 

@@ -3,7 +3,7 @@ target manifest sharding, and the completed-target journal.
 
 The reference is single-node pthreads over a shared-memory queue
 (`BoundedBuffer.hpp` + reader/worker/writer in `src/cpp/main.cpp`,
-SURVEY.md §2 C5–C6 — reconstructed; mount empty). The TPU-native design
+SURVEY.md §2 C5–C6 — reconstructed; mount empty). The accelerator design
 replaces that with data-parallel target sharding over a
 `jax.sharding.Mesh` (the only parallel axis this workload has, SURVEY.md
 §2 parallelism inventory): each host parses/builds its own shard of

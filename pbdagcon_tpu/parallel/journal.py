@@ -4,7 +4,7 @@ The reference has no failure recovery — crash = rerun everything
 (SURVEY.md §5). Per-target statelessness makes something much better
 nearly free: append each finished target id to a journal file (fsync'd
 batches), and on restart skip any group whose id is already journaled.
-This is the TPU build's entire "checkpoint/resume" story because there
+This is the system's entire "checkpoint/resume" story because there
 is no other state to save (no model, no optimizer — a pure stream
 processor)."""
 

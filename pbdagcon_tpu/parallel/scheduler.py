@@ -8,7 +8,7 @@ Replaces the reference's BoundedBuffer reader/worker/writer threading
   disjoint manifest shard, no coordination needed);
 - `BucketScheduler`: groups linearized targets into (V-bucket) batches
   up to `batch_targets`, optionally overlapping host-side graph building
-  with device DP via a background thread (the TPU analogue of the
+  with device DP via a background thread (the device-side analogue of the
   reference's reader-thread backpressure is the bounded queue here).
 """
 

@@ -1,6 +1,7 @@
 """DAZZ_DB / .las reader round-trips + dazcon container frontend."""
 
 import io as _io
+import os
 import random
 import subprocess
 import sys
@@ -15,6 +16,8 @@ pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built"
 )
 
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _mk_db(tmp_path, seqs):
     from pbdagcon_tpu.dazzio import write_dazz_db
@@ -81,7 +84,7 @@ def test_dazcon_container_frontend(tmp_path):
     with open(m4, "w") as f:
         f.write("\n".join(m4_lines) + "\n")
 
-    env = {"PYTHONPATH": "/root/repo", "JAX_PLATFORMS": "cpu",
+    env = {"PYTHONPATH": _ROOT, "JAX_PLATFORMS": "cpu",
            "PATH": "/usr/bin:/bin"}
     r1 = subprocess.run(
         [sys.executable, "-m", "pbdagcon_tpu.dazcon", las, db,

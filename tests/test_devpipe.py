@@ -369,11 +369,9 @@ def test_caps_convergence_random_class_mix():
 
 
 def test_caps_v_alignment_fence():
-    """Round-5 crash fence: the one reproducible TPU-worker crash hit
-    the exact shape ND=16383 / V=17407 (the un-aligned L + ND at the
-    top ND rung — docs/HIGHDEPTH.md #5). caps_for must never emit an
-    unaligned V again: every V is a multiple of 256, so the crash
-    shape is unreachable and the blocked DP's V % 64 == 0 holds
+    """Alignment fence: caps_for never emits an unaligned V (the
+    un-aligned L + ND at the top ND rung would be V=17407): every V is
+    a multiple of 256, so the blocked DP's V % 64 == 0 holds
     everywhere."""
     from pbdagcon_tpu.devpipe import DevCapsConfig, caps_for
 

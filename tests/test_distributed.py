@@ -65,7 +65,7 @@ def _run_two_process(tmp_path, backend: str):
     for rank in range(2):
         env = dict(os.environ)
         env.update(
-            PYTHONPATH="/root/repo",
+            PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
             JAX_PLATFORMS="cpu",
             JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
             JAX_NUM_PROCESSES="2",

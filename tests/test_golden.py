@@ -26,9 +26,62 @@ CFG = dict(min_weight=6, min_length=100)
     ("xla", False),
     ("xla", True),
     ("blocked", True),
-    ("pallas", False),
 ])
 def test_golden_all_backends(backend, use_native):
+    if use_native and not native.available():
+        pytest.skip("native library not built")
+    out = _io.StringIO()
+    with open(M5) as f:
+        run_stream(
+            f, FastaWriter(out),
+            DagconConfig(backend=backend, use_native=use_native, **CFG),
+        )
+    assert out.getvalue() == EXPECTED
+
+
+def _golden_via_solver(solver: str) -> str:
+    """Golden input through the host linearizer and one device DP
+    solver (`dp._solve`)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from pbdagcon_tpu.io import read_groups
+    from pbdagcon_tpu.ops.dp import DP_KEYS, _solve, choose_layout, pad_batch
+    from pbdagcon_tpu.pipeline import consensus_for_lin, linearize_group
+
+    cfg = DagconConfig(backend="xla", use_native=False, **CFG)
+    with open(M5) as f:
+        lins = [linearize_group(g, cfg) for g in read_groups(f, "m5")]
+    V = -(-max(l.n for l in lins) // 64) * 64
+    W, K = choose_layout(lins)
+    b = pad_batch(lins, V, W, K)
+    scores, unconv = _solve(tuple(jnp.asarray(b[k]) for k in DP_KEYS), V,
+                            solver)
+    assert unconv is None or not np.asarray(unconv).any()
+    scores = np.asarray(scores)
+    out = _io.StringIO()
+    w = FastaWriter(out)
+    for i, lin in enumerate(lins):
+        w.write_target(lin.sid, consensus_for_lin(lin, scores[i, : lin.n], cfg))
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("solver", ["scan", "blocked"])
+def test_golden_via_solver(solver):
+    """Each device DP solver, called directly on the padded batch,
+    reproduces the golden FASTA."""
+    assert _golden_via_solver(solver) == EXPECTED
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,use_native", [
+    ("xla", False),
+    ("xla", True),
+    ("blocked", True),
+    ("devbuild", True),
+])
+def test_golden_on_gpu(gpu, backend, use_native):
+    """Every device backend on the card."""
     if use_native and not native.available():
         pytest.skip("native library not built")
     out = _io.StringIO()

@@ -495,8 +495,8 @@ def test_hybrid_host_hedges_stalled_device(monkeypatch):
 
 
 def test_hybrid_fast_device_takes_stream_and_beats_host(monkeypatch):
-    """The 'real TPU host' claim, pinned by its simulation (VERDICT r3
-    #7): with the device 10x faster per byte, the scheduler must (a)
+    """The fast-device claim, pinned by its simulation: with the
+    device 10x faster per byte, the scheduler must (a)
     hand the device the clear majority of chunks and (b) finish the
     stream well under the host-only wall time — i.e. aggregate
     throughput approaches the device rate instead of being dragged to

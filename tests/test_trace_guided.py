@@ -3,6 +3,7 @@
 must be byte-identical to unguided on realistic pileups, and the
 container CLI must produce identical FASTA with --trace-guided."""
 
+import os
 import random
 import subprocess
 import sys
@@ -17,6 +18,8 @@ from pbdagcon_tpu.dazcon import trace_guide
 from pbdagcon_tpu.dazzio import Overlap, traces_from_alignment
 from pbdagcon_tpu.simulate import NoiseProfile, random_seq, simulate_pileup
 
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _mutate(rng, t, sub=0.08, ins=0.08, dele=0.06):
     out = []
@@ -104,7 +107,7 @@ def test_dazcon_trace_guided_cli_parity(tmp_path):
     las = str(tmp_path / "ovl.las")
     write_las(las, ovls, tspace=100)
 
-    env = {"PYTHONPATH": "/root/repo", "JAX_PLATFORMS": "cpu",
+    env = {"PYTHONPATH": _ROOT, "JAX_PLATFORMS": "cpu",
            "PATH": "/usr/bin:/bin"}
     outs = []
     for extra in ([], ["--trace-guided"]):

@@ -8,10 +8,12 @@ boundaries; this is the honest per-op instrument.
     python tools/ablate_devbuild.py [names...]
 """
 import functools
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 
@@ -32,7 +34,6 @@ NAMES = [
     "cov_hist",
     "match_hist",
     "trans_hist",
-    "trans_mask",
     "absorb_hists",
     "absorb_dl_sort",
     "absorb_died_sort",

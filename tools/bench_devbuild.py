@@ -7,7 +7,8 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 
 def main() -> int:
@@ -17,15 +18,9 @@ def main() -> int:
 
     import jax
 
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.join(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))), ".jax_cache"),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from pbdagcon_tpu.config import enable_compile_cache
+
+    enable_compile_cache()
     print(f"platform={jax.devices()[0].platform}", file=sys.stderr)
 
     from pbdagcon_tpu import native

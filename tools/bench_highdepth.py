@@ -4,10 +4,12 @@ paths vs the single-core host engine, parity-checked.
     python tools/bench_highdepth.py [cov] [n_targets] [L]
 """
 import io as _io
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 

@@ -1,7 +1,9 @@
 """Debug driver: device_build vs numpy oracle on small fixtures (CPU)."""
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 import jax
 
 jax.config.update("jax_platforms", "cpu")

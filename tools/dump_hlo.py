@@ -2,9 +2,11 @@
 
     python tools/dump_hlo.py /tmp/build_hlo.txt
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 

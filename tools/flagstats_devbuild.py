@@ -4,9 +4,11 @@ Usage: python tools/flagstats_devbuild.py [n_targets] [length] [cov]
 Prints per-class counts so fallback-reduction work targets the real
 offender, not a guess.
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 import jax
 
 jax.config.update("jax_platforms", "cpu")

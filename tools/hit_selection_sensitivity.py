@@ -16,9 +16,11 @@ docs/HIT_SELECTION_SENSITIVITY.md).
 """
 import io as _io
 import random
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 import jax
 
 jax.config.update("jax_platforms", "cpu")

@@ -7,10 +7,12 @@ internal blocks. Differences give per-block cost.
     python tools/prof_absorb.py [n_targets] [cov]
 """
 import functools
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 

@@ -1,4 +1,4 @@
-import sys; sys.path.insert(0, "/root/repo")
+import os, sys; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import time
 import numpy as np
 from pbdagcon_tpu.config import enable_compile_cache

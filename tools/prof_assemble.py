@@ -2,10 +2,12 @@
 
     python tools/prof_assemble.py [n_targets] [cov]
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 

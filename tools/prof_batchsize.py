@@ -4,10 +4,12 @@ overheads on the chip?
 
     python tools/prof_batchsize.py [B ...]
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 

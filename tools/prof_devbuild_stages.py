@@ -6,10 +6,12 @@ big numbers are unambiguous).
     python tools/prof_devbuild_stages.py [n_targets] [cov]
 """
 import functools
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 

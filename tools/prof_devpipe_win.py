@@ -5,10 +5,12 @@ serializes the host encode in front of the first dispatch.
     python tools/prof_devpipe_win.py [win ...]
 """
 import io
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 from pbdagcon_tpu import native
 from pbdagcon_tpu.config import DagconConfig

@@ -4,10 +4,12 @@ shape-identical non-gather stub (results are WRONG — timing only).
     python tools/prof_gatherab.py
 """
 import functools
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 

@@ -7,10 +7,12 @@ compiles (B=128, R*C ~ 41k, N=R*CH ~ 4k, NF ~ 49k, V ~ 4.6k).
 Prints ms/iter for each candidate; exactness is asserted in-run against
 the sort-based answers.
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import jax
 import jax.numpy as jnp

@@ -4,10 +4,12 @@ assemble_band via their _upto hooks, on the real chip.
     python tools/prof_substages.py [stage]   # stage in {absorb, linz, asm}
 """
 import functools
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 

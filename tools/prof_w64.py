@@ -5,10 +5,12 @@ exact host path, so if flags stay rare the 33% band shrink is free.
     python tools/prof_w64.py [W ...]
 """
 import io
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import pbdagcon_tpu.devpipe as devpipe
 from pbdagcon_tpu import native

@@ -16,7 +16,8 @@ import sys
 import tempfile
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 
 def run_procs(inp, nproc, threads, outdir):
@@ -26,7 +27,7 @@ def run_procs(inp, nproc, threads, outdir):
     for rank in range(nproc):
         env = dict(os.environ)
         env.update(
-            PYTHONPATH="/root/repo",
+            PYTHONPATH=_ROOT,
             JAX_PLATFORMS="cpu",
         )
         cmd = [

@@ -14,9 +14,11 @@ Writes a markdown table to stdout (pasted into
 docs/SCORER_SENSITIVITY.md).
 """
 import io as _io
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 import jax
 
 jax.config.update("jax_platforms", "cpu")

@@ -13,7 +13,8 @@ import random
 import subprocess
 import sys
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 trials = int(sys.argv[1]) if len(sys.argv) > 1 else 40
 offset = int(sys.argv[2]) if len(sys.argv) > 2 else 0
@@ -31,7 +32,6 @@ if offset == 0 and trials > CHUNK:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-os.environ.setdefault("DAGCON_JAX_CACHE", "0")
 
 from pbdagcon_tpu.config import DagconConfig
 from pbdagcon_tpu.io import FastaWriter

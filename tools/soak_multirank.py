@@ -33,7 +33,8 @@ import sys
 import tempfile
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 # small/mid classes keep 1M-target inputs ~20 GB
 CLASSES = [(300, 8), (700, 14), (1200, 25), (2000, 16), (900, 40)]
@@ -85,7 +86,7 @@ def _rank_cmd(inp, rank, ranks, journal, threads, distributed):
         "--journal", journal,
     ]
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH="/root/repo")
+               PYTHONPATH=_ROOT)
     if distributed:
         cmd.append("--distributed")
         env.update(
@@ -251,7 +252,7 @@ def main() -> int:
             "-j", str(args.ranks * args.threads), "--journal", jf,
         ]
         env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   PYTHONPATH="/root/repo")
+                   PYTHONPATH=_ROOT)
         fp = subprocess.run(
             cmd, stdout=open(of, "w"),
             stderr=open(os.path.join(workdir, "errfull.log"), "w"),
